@@ -133,7 +133,7 @@ int main(int argc, char **argv) {
     float *delta = malloc(3ull * n * sizeof(float));
 
     /* Plummer sphere (analytic density -> model-based h warm start, the
-     * same prior the TPU implementation gets from the beta model) */
+     * same prior the JAX implementation gets from the beta model) */
     double a_pl = 150.0;
     srand48(42);
     for (int i = 0; i < n; i++) {

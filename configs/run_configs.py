@@ -14,10 +14,8 @@ import sys
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from toycluster_tpu import parse_par_file  # noqa: E402
-from toycluster_tpu.pipeline import make_ics  # noqa: E402
-
-PAR = "/root/reference/cluster.par"
+from toycluster import STOCK_PAR, parse_par_file  # noqa: E402
+from toycluster.pipeline import make_ics  # noqa: E402
 
 PRESETS = {
     1: dict(ntotal=2 * 32**3, bfld_norm=0.0, output_file="IC_config1"),
@@ -43,7 +41,7 @@ def main():
                 overrides[k] = float(v)
             except ValueError:
                 pass
-    cfg = parse_par_file(PAR, **{**PRESETS[idx], **overrides})
+    cfg = parse_par_file(STOCK_PAR, **{**PRESETS[idx], **overrides})
     make_ics(cfg)
 
 

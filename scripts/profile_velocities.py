@@ -22,16 +22,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from toycluster_tpu import parse_par_file
-from toycluster_tpu.scene import build_scene
-from toycluster_tpu.particles import (empty_particles,
+from toycluster import STOCK_PAR, parse_par_file
+from toycluster.scene import build_scene
+from toycluster.particles import (empty_particles,
                                       halo_arrays_from_scene)
 
 NTOTAL = int(float(sys.argv[1])) if len(sys.argv) > 1 else 100_000_000
 CFG_IDX = int(sys.argv[2]) if len(sys.argv) > 2 else 5
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0] + "/configs")
-from run_configs import PRESETS, PAR  # noqa: E402
+from run_configs import PRESETS  # noqa: E402
 
 TIMES = {}
 
@@ -53,8 +53,8 @@ def _timed(mod, name):
 
 
 def main():
-    import toycluster_tpu.models.velocities as V
-    import toycluster_tpu.models.eddington as E
+    import toycluster.models.velocities as V
+    import toycluster.models.eddington as E
 
     for nm in ("build_velocity_tables", "stack_velocity_tables",
                "_build_cdf_pack", "_sample_page", "_page_radius_max",
@@ -63,10 +63,10 @@ def main():
         _timed(V, nm)
     _timed(E, "build_distribution_function")
 
-    cfg = parse_par_file(PAR, **{**PRESETS[CFG_IDX], "ntotal": NTOTAL})
+    cfg = parse_par_file(STOCK_PAR, **{**PRESETS[CFG_IDX], "ntotal": NTOTAL})
     scene = build_scene(cfg)
     if cfg.substructure:
-        from toycluster_tpu.models.substructure import setup_substructure
+        from toycluster.models.substructure import setup_substructure
         scene = setup_substructure(scene, seed=cfg.seed + 7)
     ha = halo_arrays_from_scene(scene)
 

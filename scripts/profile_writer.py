@@ -19,7 +19,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from toycluster_tpu.io import gadget
+from toycluster.io import gadget
 
 NTOTAL = int(float(sys.argv[1])) if len(sys.argv) > 1 else 100_000_000
 OUT = sys.argv[2] if len(sys.argv) > 2 else "/tmp/IC_writer_profile"

@@ -1,4 +1,4 @@
-"""Per-phase wall-clock breakdown of one WVT iteration on the real chip."""
+"""Per-phase wall-clock breakdown of one WVT iteration on the GPU."""
 
 import time
 
@@ -6,11 +6,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from toycluster_tpu import parse_par_file
-from toycluster_tpu.scene import build_scene
-from toycluster_tpu.particles import halo_arrays_from_scene
-from toycluster_tpu.models import positions as pos_mod, sph as sph_mod
-from toycluster_tpu.ops import blocks as blk, pair_ops
+from toycluster import STOCK_PAR, parse_par_file
+from toycluster.scene import build_scene
+from toycluster.particles import halo_arrays_from_scene
+from toycluster.models import positions as pos_mod, sph as sph_mod
+from toycluster.ops import blocks as blk, pair_ops
 
 N = 2_000_000
 
@@ -30,7 +30,7 @@ def t(label, fn, *a, **k):
 
 
 def main():
-    cfg = parse_par_file("/root/reference/cluster.par").replace(ntotal=N)
+    cfg = parse_par_file(STOCK_PAR).replace(ntotal=N)
     scene = build_scene(cfg)
     ha = halo_arrays_from_scene(scene)
     key = jax.random.PRNGKey(1)

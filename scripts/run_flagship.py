@@ -4,7 +4,8 @@ merger, 1e7 particles, full pipeline to WVT convergence on one chip.
 Records the BASELINE metric (wall-clock to converged IC), the WVT
 convergence trajectory, the WC6/295 neighbour contract at production
 settings (sph.c:159-166), the direct-summation density audit, and the
-HBM footprint.  Writes FLAGSHIP_r02.json at the repo root.
+device-memory footprint.  Writes flagship_config<N>.json in the working
+directory and prints the same record.
 
     python scripts/run_flagship.py [config_index] [ntotal=...]
 """
@@ -21,9 +22,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from toycluster_tpu import parse_par_file, constants as const
-from toycluster_tpu.pipeline import make_ics
-from configs.run_configs import PRESETS, PAR
+from toycluster import STOCK_PAR, parse_par_file, constants as const
+from toycluster.pipeline import make_ics
+from configs.run_configs import PRESETS
 
 IDX = int(sys.argv[1]) if len(sys.argv) > 1 else 3
 
@@ -42,13 +43,12 @@ def main():
     preset.setdefault("output_file", f"/tmp/IC_config{IDX}")
     if not preset["output_file"].startswith("/"):
         preset["output_file"] = "/tmp/" + preset["output_file"]
-    cfg = parse_par_file(PAR, **preset)
+    cfg = parse_par_file(STOCK_PAR, **preset)
 
     wvt_log = []
     stage_t = {}
     stage_n = {}
-    stage_hbm = {}   # stage-boundary live-buffer estimates (VERDICT r4
-    #                  weak #5: memory_stats() is null on this backend)
+    stage_hbm = {}   # stage-boundary live-buffer estimates
     t_last = [time.perf_counter()]
 
     def log(stage, **kw):
@@ -88,11 +88,11 @@ def main():
     frac_ok = float((dev < const.NNGBDEV + 1e-3).mean())
 
     mem = jax.local_devices()[0].memory_stats() or {}
-    # B-field evidence (VERDICT r2 #1): the artifact must prove a real
+    # B-field evidence: the record must prove a real
     # BFLD block, not just a stage that ran (magnetic_field.c:71-131)
     bstats = None
     if cfg.bfld_norm and parts.bfld.shape[0]:
-        from toycluster_tpu.models.bfield import BMAX, BMAX_SUB
+        from toycluster.models.bfield import BMAX, BMAX_SUB
         n_gas = parts.n_gas
         bmag = np.asarray(jnp.linalg.norm(parts.bfld, axis=-1))
         bstats = {
@@ -107,7 +107,7 @@ def main():
             "cap_frac_sub_2uG": round(
                 float((bmag >= BMAX_SUB * 0.999).mean()), 8),
         }
-        # at-scale B validation (VERDICT r3 #3): per host halo, median
+        # at-scale B validation: per host halo, median
         # |B| per log-r bin against the Bonafede+2010 scaling
         # B proportional to (rho_model/rho0)^eta (magnetic_field.c:33-69).
         # Pre-cap bins must show a near-constant |B| / (rho/rho0)^eta.
@@ -167,7 +167,7 @@ def main():
         "hbm_peak_bytes": mem.get("peak_bytes_in_use"),
         "hbm_peak_gib": round(mem.get("peak_bytes_in_use", 0) / 2**30, 2),
         # standing (stage-boundary) live-buffer estimates; kernel
-        # transients ride on top — margin = 16 GiB chip HBM - standing
+        # transients ride on top
         "stage_hbm_est_gib": stage_hbm,
         "device": str(jax.devices()[0]),
         "overrides": sys.argv[2:],
@@ -176,11 +176,10 @@ def main():
         if os.path.exists(cfg.output_file) else None,
         "bfield": bstats,
         # full per-iteration relaxation trajectory (wvt_relax.c:91-92's
-        # printed oracle), committed WITH the artifact — VERDICT r2 #8
+        # printed oracle)
         "wvt_trajectory": wvt_log,
     }
-    path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), f"FLAGSHIP_r07_config{IDX}.json")
+    path = f"flagship_config{IDX}.json"   # in the working directory
     with open(path, "w") as fh:
         json.dump(out, fh, indent=1)
     print(json.dumps(out))

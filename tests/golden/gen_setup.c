@@ -5,8 +5,8 @@
  * file, and prints every derived halo quantity as machine-readable
  * PARITY lines.  tests/test_setup_parity.py asserts the repo's
  * build_scene() against the committed output (setup_table_cluster.txt)
- * at <=1e-5 relative on every quantity (VERDICT r4 missing #2; the
- * reference's own printed table is setup.c:117-142).
+ * at <=1e-5 relative on every quantity (the reference's own printed
+ * table is setup.c:117-142).
  *
  * Usage: gen_setup <parfile>   (build via build.sh) */
 #include "globals.h"

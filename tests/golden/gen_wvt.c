@@ -14,7 +14,7 @@
  * sampler so BOTH engines relax the identical initial particle set;
  * the per-iteration "#NN: Err max=... mean=..." lines the loop prints
  * (wvt_relax.c:91-92) ARE the oracle trajectory.
- * scripts/parity_refc.py runs both sides and commits PARITY_REFC.
+ * tests/test_wvt_refc_parity.py runs both sides.
  *
  * Usage: gen_wvt <parfile> <positions.f32>     (build via build.sh) */
 #include "globals.h"

@@ -3,12 +3,12 @@ import textwrap
 
 import pytest
 
-from toycluster_tpu import Config, parse_par_file
-from toycluster_tpu.units import units_from_config
-from toycluster_tpu.cosmology import Cosmology
+from toycluster import STOCK_PAR, Config, parse_par_file
+from toycluster.units import units_from_config
+from toycluster.cosmology import Cosmology
 
 
-REFERENCE_PAR = "/root/reference/cluster.par"
+REFERENCE_PAR = STOCK_PAR
 
 
 def test_parse_reference_par_file():

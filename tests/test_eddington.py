@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from toycluster_tpu.models import profiles
-from toycluster_tpu.models.eddington import build_distribution_function
+from toycluster.models import profiles
+from toycluster.models.eddington import build_distribution_function
 
 
 G = 6.673e-8 / 3.085678e21**3 * 1.989e43 * (3.085678e21 / 1e5) ** 2
@@ -38,7 +38,7 @@ def test_fE_monotone_and_positive():
 
 
 def test_fE_with_gas_potential_differs():
-    from toycluster_tpu.models.tables import build_mass_table
+    from toycluster.models.tables import build_mass_table
     tab = build_mass_table(3e-5, 0.54, 120.0, 1500.0, False, 2500.0)
     df_gas = build_distribution_function(
         mass_dm=8e4, a_hernq=350.0, G=G, mass_table=tab,

@@ -3,7 +3,7 @@ import struct
 import numpy as np
 import pytest
 
-from toycluster_tpu.io.gadget import (GadgetHeader, read_snapshot,
+from toycluster.io.gadget import (GadgetHeader, read_snapshot,
                                       write_snapshot, BLOCKS)
 
 
@@ -101,7 +101,7 @@ def test_device_streamed_bytes_match_numpy(tmp_path, monkeypatch):
     file must be byte-identical to the whole-buffer numpy path,
     including a ragged tail chunk (n not divisible by chunk rows)."""
     import jax.numpy as jnp
-    from toycluster_tpu.io import gadget
+    from toycluster.io import gadget
 
     # 12-byte rows / 64-byte chunks -> 5 rows per chunk; n=23 gives a
     # 3-row tail that exercises the clamped-start trim in _fetch_chunk.

@@ -6,7 +6,7 @@ guarantees (peano.c:128-284)."""
 import numpy as np
 import jax.numpy as jnp
 
-from toycluster_tpu.ops.keys import hilbert_keys, morton_keys
+from toycluster.ops.keys import hilbert_keys, morton_keys
 
 
 def _grid(n):

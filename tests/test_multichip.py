@@ -11,17 +11,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from toycluster_tpu import parse_par_file
-from toycluster_tpu.models import positions as pos_mod
-from toycluster_tpu.parallel import wvt_shard
-from toycluster_tpu.parallel.mesh import make_mesh
-from toycluster_tpu.particles import halo_arrays_from_scene
-from toycluster_tpu.scene import build_scene
+from toycluster import STOCK_PAR, parse_par_file
+from toycluster.models import positions as pos_mod
+from toycluster.parallel import wvt_shard
+from toycluster.parallel.mesh import make_mesh
+from toycluster.particles import halo_arrays_from_scene
+from toycluster.scene import build_scene
 
 
 @pytest.fixture(scope="module")
 def small_scene():
-    cfg = parse_par_file("/root/reference/cluster.par").replace(
+    cfg = parse_par_file(STOCK_PAR).replace(
         ntotal=6144, sph_kernel="m4")
     scene = build_scene(cfg)
     ha = halo_arrays_from_scene(scene)
@@ -105,8 +105,8 @@ def test_sharded_step_solves_density_contract(small_scene):
 @pytest.mark.skipif(jax.device_count() < 2,
                     reason="needs multiple (virtual) devices")
 def test_sharded_stream_engine_matches_xla(small_scene):
-    """The PRODUCTION Pallas stream engine under shard_map (the TPU
-    path, run here through the Pallas interpreter) must agree with the
+    """The production stream engine under shard_map (the GPU path, run
+    here through the Pallas interpreter) must agree with the
     sharded XLA pair-operator engine — same candidate semantics as the
     single-chip equivalence tests, but across the all-gathered source
     layout (tree.c:25-111 gather semantics)."""
@@ -308,7 +308,7 @@ def test_make_ics_mesh_entry(small_scene, tmp_path):
     """make_ics(mesh=...) runs the WVT stage sharded over the mesh and
     the remaining stages single-chip — multi-chip as a PIPELINE
     capability, not just a library path."""
-    from toycluster_tpu.pipeline import make_ics
+    from toycluster.pipeline import make_ics
 
     cfg, scene, ha, parts = small_scene
     cfg = cfg.replace(wvt_max_iter=4,
@@ -325,7 +325,7 @@ def test_make_ics_mesh_entry(small_scene, tmp_path):
     assert bool((parts2.rho[:n_gas] > 0).all())
     assert bool((parts2.u[:n_gas] > 0).all())
     assert np.isfinite(np.asarray(parts2.vel)).all()
-    from toycluster_tpu.io.gadget import read_snapshot
+    from toycluster.io.gadget import read_snapshot
     snap = read_snapshot(cfg.output_file)
     assert snap["header"].npart[0] == n_gas
     assert np.isfinite(snap["pos"]).all()
@@ -340,7 +340,7 @@ def test_make_ics_mesh_entry(small_scene, tmp_path):
 @pytest.mark.skipif(jax.device_count() < 2,
                     reason="needs multiple (virtual) devices")
 def test_sharded_density_matches_single_device(small_scene):
-    from toycluster_tpu.parallel import stages
+    from toycluster.parallel import stages
     cfg, scene, ha, parts = small_scene
     pos = parts.pos[:parts.n_gas]
     kw = dict(boxsize=scene.boxsize, mpart=scene.mpart_gas,
@@ -359,7 +359,7 @@ def test_sharded_density_matches_single_device(small_scene):
 @pytest.mark.skipif(jax.device_count() < 2,
                     reason="needs multiple (virtual) devices")
 def test_sharded_curl_matches_single_device(small_scene):
-    from toycluster_tpu.parallel import stages
+    from toycluster.parallel import stages
     cfg, scene, ha, parts = small_scene
     n_gas = parts.n_gas
     pos = parts.pos[:n_gas]
@@ -385,8 +385,8 @@ def test_sharded_curl_matches_single_device(small_scene):
 @pytest.mark.skipif(jax.device_count() < 2,
                     reason="needs multiple (virtual) devices")
 def test_sharded_dm_speeds_match_single_device(small_scene):
-    from toycluster_tpu.models import velocities as vel_mod
-    from toycluster_tpu.parallel import stages
+    from toycluster.models import velocities as vel_mod
+    from toycluster.parallel import stages
     cfg, scene, ha, parts = small_scene
     n_gas = parts.n_gas
     d = parts.pos[n_gas:] - (ha.d_com[0] + scene.boxhalf)
@@ -407,8 +407,8 @@ def test_sharded_dm_speeds_match_single_device(small_scene):
 @pytest.mark.skipif(jax.device_count() < 2,
                     reason="needs multiple (virtual) devices")
 def test_sharded_dm_velocities_mesh_invariant(small_scene):
-    from toycluster_tpu.models import velocities as vel_mod
-    from toycluster_tpu.parallel import stages
+    from toycluster.models import velocities as vel_mod
+    from toycluster.parallel import stages
     cfg, scene, ha, parts = small_scene
     n_gas = parts.n_gas
     d = parts.pos[n_gas:] - (ha.d_com[0] + scene.boxhalf)
@@ -436,8 +436,8 @@ def test_sharded_dm_velocities_mesh_invariant(small_scene):
 @pytest.mark.skipif(jax.device_count() < 2,
                     reason="needs multiple (virtual) devices")
 def test_sharded_gas_bulk_matches_single_chip(small_scene):
-    from toycluster_tpu.models.velocities import _gas_bulk_jit
-    from toycluster_tpu.parallel import stages
+    from toycluster.models.velocities import _gas_bulk_jit
+    from toycluster.parallel import stages
     cfg, scene, ha, parts = small_scene
     n_gas = parts.n_gas
     bulk_stack = jnp.asarray(
@@ -463,8 +463,8 @@ def test_sharded_gas_bulk_matches_single_chip(small_scene):
 @pytest.mark.skipif(jax.device_count() < 2,
                     reason="needs multiple (virtual) devices")
 def test_sharded_temperature_matches_single_device(small_scene):
-    from toycluster_tpu.models import temperature as temp_mod
-    from toycluster_tpu.parallel import stages
+    from toycluster.models import temperature as temp_mod
+    from toycluster.parallel import stages
     cfg, scene, ha, parts = small_scene
     n_gas = parts.n_gas
     tables = temp_mod.build_energy_tables_stacked(scene)
@@ -487,7 +487,7 @@ def test_sharded_temperature_matches_single_device(small_scene):
 @pytest.mark.skipif(jax.device_count() < 2,
                     reason="needs multiple (virtual) devices")
 def test_sharded_halo_sample_mesh_invariant(small_scene):
-    from toycluster_tpu.parallel import stages
+    from toycluster.parallel import stages
     cfg, scene, ha, parts = small_scene
     key = jax.random.PRNGKey(21)
     n = 4096
@@ -512,7 +512,7 @@ def test_sharded_halo_sample_mesh_invariant(small_scene):
                     reason="needs multiple (virtual) devices")
 def test_sharded_halo_sample_matches_sequential_distribution(small_scene):
     from scipy import stats
-    from toycluster_tpu.parallel import stages
+    from toycluster.parallel import stages
     cfg, scene, ha, parts = small_scene
     n = 8192
     mesh = make_mesh(min(8, jax.device_count()))

@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from toycluster_tpu import constants as const
-from toycluster_tpu.ops import blocks as blk
-from toycluster_tpu.ops import brute, pair_ops
-from toycluster_tpu.ops.keys import morton_keys
+from toycluster import STOCK_PAR, constants as const
+from toycluster.ops import blocks as blk
+from toycluster.ops import brute, pair_ops
+from toycluster.ops.keys import morton_keys
 
 
 BOX = 1000.0
@@ -156,12 +156,12 @@ def test_curl_matches_brute_force(cloud, solved):
 
 
 def test_superblock_curl_matches_brute_force(cloud, solved, monkeypatch):
-    """The B-field stage's superblock curl path (bounded receiver slabs
-    over expanded superblock lists — the 5e7-gas-safe path that never
-    materialises a block-granular candidate table) must agree with
-    brute-force direct summation (sph.c:216-300)."""
+    """The B-field stage's superblock curl path (the stream kernel over
+    superblock lists, which never materialises a block-granular
+    candidate table; interpret mode here) must agree with brute-force
+    direct summation (sph.c:216-300)."""
     from types import SimpleNamespace
-    from toycluster_tpu.models import bfield, sph as sph_mod
+    from toycluster.models import bfield, sph as sph_mod
     bi, cand, res, pad = solved
     n = N
     inv = np.asarray(bi.order)
@@ -174,8 +174,6 @@ def test_superblock_curl_matches_brute_force(cloud, solved, monkeypatch):
     h_o[inv] = np.asarray(res.hsml[:n])
     vf_o[inv] = np.asarray(res.var_hsml_fac[:n])
 
-    # tiny slab budget: forces the multi-slab host loop at test scale
-    monkeypatch.setattr(bfield, "_SLAB_ENTRIES", 1)
     state = sph_mod._build_neighbours_sb(cloud, jnp.asarray(h_o), BOX)
     assert state.sb
     scene = SimpleNamespace(mpart_gas=1.0, boxsize=BOX,
@@ -184,7 +182,8 @@ def test_superblock_curl_matches_brute_force(cloud, solved, monkeypatch):
                             rho=jnp.asarray(rho_o),
                             var_hsml_fac=jnp.asarray(vf_o),
                             apot=apot_orig)
-    b_sb = np.asarray(bfield._curl_superblock(scene, parts, state))
+    b_sb = np.asarray(bfield._curl_stream(scene, parts, state,
+                                          interpret=True))
 
     b_brute = brute.brute_curl(cloud, jnp.asarray(h_o), jnp.asarray(rho_o),
                                jnp.asarray(vf_o), apot_orig, 1.0, BOX)
@@ -199,15 +198,15 @@ def test_corner_lanes_grow_past_box_third():
     DESNNGB neighbours across the wrap — the reference's grow loop is
     unbounded (sph.c:36-64), so the contract must still close there.
     Regression: the old global boxsize/3 escape hatch left 0.9% of
-    config-1 (32^3) lanes 100+ neighbours short (FLAGSHIP_r04_config1).
+    config-1 (32^3) lanes 100+ neighbours short.
     """
-    from toycluster_tpu import parse_par_file
-    from toycluster_tpu.models import positions as pos_mod
-    from toycluster_tpu.models import sph as sph_mod
-    from toycluster_tpu.particles import halo_arrays_from_scene
-    from toycluster_tpu.scene import build_scene
+    from toycluster import parse_par_file
+    from toycluster.models import positions as pos_mod
+    from toycluster.models import sph as sph_mod
+    from toycluster.particles import halo_arrays_from_scene
+    from toycluster.scene import build_scene
 
-    cfg = parse_par_file("/root/reference/cluster.par").replace(
+    cfg = parse_par_file(STOCK_PAR).replace(
         ntotal=8000, sph_kernel="m4")
     scene = build_scene(cfg)
     ha = halo_arrays_from_scene(scene)
@@ -228,7 +227,7 @@ def test_corner_lanes_grow_past_box_third():
 
 
 def test_hard_h_cap_thresholds():
-    from toycluster_tpu.models.sph import _SB_WIDTH_CAP, hard_h_cap
+    from toycluster.models.sph import _SB_WIDTH_CAP, hard_h_cap
 
     box = 1000.0
     # whole domain within one candidate row -> min-image limit

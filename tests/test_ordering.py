@@ -7,18 +7,18 @@ keeps sampling order (halo-grouped, setup.c:253-264).  Particle ids are
 assigned BEFORE the resort and travel with their particles (ids.c:8-44),
 so the snapshot's ID block records both orderings — this is what makes
 the strided-ID domain-decomposition trick work downstream.  These tests
-pin that contract on the TPU-native pipeline.
+pin that contract on the device pipeline.
 """
 
 import jax
 import numpy as np
 import pytest
 
-from toycluster_tpu import parse_par_file
-from toycluster_tpu.models import positions as pos_mod
-from toycluster_tpu.models.ids import make_ids
-from toycluster_tpu.particles import halo_arrays_from_scene
-from toycluster_tpu.scene import build_scene
+from toycluster import STOCK_PAR, parse_par_file
+from toycluster.models import positions as pos_mod
+from toycluster.models.ids import make_ids
+from toycluster.particles import halo_arrays_from_scene
+from toycluster.scene import build_scene
 
 
 @pytest.fixture(scope="module")
@@ -27,7 +27,7 @@ def reassigned():
     no relaxation (ordering semantics do not depend on it)."""
     import jax.numpy as jnp
 
-    cfg = parse_par_file("/root/reference/cluster.par").replace(
+    cfg = parse_par_file(STOCK_PAR).replace(
         ntotal=4096, mass_ratio=1.0)
     scene = build_scene(cfg)
     ha = halo_arrays_from_scene(scene)
@@ -102,10 +102,10 @@ def test_snapshot_records_final_order(tmp_path):
     """The writer emits arrays in memory order — the snapshot's ID block
     is exactly parts.pid, so the resorted-gas + sampling-order-DM
     semantics survive into the file (io.c:228-244 block order)."""
-    from toycluster_tpu.io.gadget import read_snapshot, \
+    from toycluster.io.gadget import read_snapshot, \
         write_scene_snapshot
 
-    cfg = parse_par_file("/root/reference/cluster.par").replace(
+    cfg = parse_par_file(STOCK_PAR).replace(
         ntotal=4096, mass_ratio=1.0)
     scene = build_scene(cfg)
     ha = halo_arrays_from_scene(scene)

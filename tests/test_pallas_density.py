@@ -1,13 +1,13 @@
-"""Pallas fused density kernel vs the XLA pair operator (interpret mode on
-CPU; the compiled path runs on TPU via bench.py / TOYCLUSTER_ENGINE)."""
+"""Stream kernels (ops/stream.py, Pallas through Triton) vs the XLA pair
+operators, in interpret mode on the CPU; chip_smoke.py runs the compiled
+kernels against the same references on the GPU."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from toycluster_tpu.ops import blocks as blk
-from toycluster_tpu.ops import pair_ops
-from toycluster_tpu.ops.pallas_pair import solve_density_pallas
+from toycluster.ops import blocks as blk
+from toycluster.ops import pair_ops
 
 BOX = 1000.0
 N = 1500
@@ -21,7 +21,7 @@ def assert_h_rho_match(h_p, h_x, rho_p, rho_x, wk_p):
     wkNgb(h) plateaus where the support sphere grows into a void (the
     cusp fixture solves h spanning 0.06..100), so h there is only
     determined up to the contract window — ANY arithmetic difference
-    (e.g. the stream kernel's MXU pair tile vs the XLA pair sum) moves
+    (e.g. the stream kernel's per-tile sums vs the XLA pair sum) moves
     such lanes along the plateau.  A real pair-loss regression still
     fails: it breaks |wkNgb - N| < NNGBDEV (asserted for EVERY done
     lane) or moves > 2% of lanes."""
@@ -57,238 +57,12 @@ def setup():
     return bi, cand, h0s, cap
 
 
-def test_pallas_matches_xla_solver(setup):
-    bi, cand, h0s, cap = setup
-    sel = pair_ops.full_selection(bi, cand.idx)
-    res = pair_ops.solve_density(bi, sel, h0s, cap, 1.0, BOX,
-                                 kernel="wc6", desnngb=DESNNGB,
-                                 max_iter=24)
-
-    nb = bi.n_blocks
-    pos_t = bi.pos.reshape(nb, blk.BLOCK, 3).transpose(0, 2, 1)
-    valid_t = bi.valid.reshape(nb, 1, blk.BLOCK).astype(jnp.float32)
-    xi = pos_t  # full selection: receivers are all blocks
-    h0_b = h0s.reshape(nb, blk.BLOCK)
-    cap_b = cap.reshape(nb, blk.BLOCK)
-
-    rho, h, vf, wk, done, sat = solve_density_pallas(
-        pos_t, valid_t, cand.idx, xi, h0_b, cap_b, 1.0, BOX,
-        kernel="wc6", desnngb=DESNNGB, n_sweeps=24, interpret=True)
-
-    v = np.asarray(bi.valid)
-    done_x = np.asarray(res.done) & v
-    done_p = np.asarray(done).reshape(-1) & v
-    # same convergence picture (fractions over the valid lanes)
-    # both solvers leave the same cap-saturated tail (handled by the
-    # production retry loop); the value comparison below is the real check
-    assert done_p.sum() >= 0.97 * done_x.sum()
-    assert done_p.sum() > 0.9 * v.sum()
-    both = done_x & done_p
-    np.testing.assert_allclose(np.asarray(h).reshape(-1)[both],
-                               np.asarray(res.hsml)[both], rtol=2e-3)
-    np.testing.assert_allclose(np.asarray(rho).reshape(-1)[both],
-                               np.asarray(res.rho)[both], rtol=2e-3)
-    np.testing.assert_allclose(np.asarray(vf).reshape(-1)[both],
-                               np.asarray(res.var_hsml_fac)[both],
-                               rtol=5e-3)
-    wk_p = np.asarray(wk).reshape(-1)[both]
-    assert np.abs(wk_p - DESNNGB).max() < 0.05 + 1e-3
-
-
-def test_fused_kernel_matches_xla(setup):
-    """The v2 fused kernel (VMEM-cached candidates, in-kernel Newton
-    while_loop, displacement pass sharing the cache) must reproduce both
-    the density solve and the displacement of the XLA operators."""
-    from toycluster_tpu.ops.pallas_pair import fused_wvt_pallas
-
-    bi, cand, h0s, cap = setup
-    nb = bi.n_blocks
-    sel = pair_ops.full_selection(bi, cand.idx)
-    res = pair_ops.solve_density(bi, sel, h0s, cap, 1.0, BOX,
-                                 kernel="wc6", desnngb=DESNNGB,
-                                 max_iter=24)
-    h_box = h0s / BOX
-    hm_sorted = jnp.where(bi.valid, h_box, 0.0)
-    d_xla = pair_ops.wvt_displacement(bi, sel, h_box, 1.0, BOX)
-
-    pos_t = bi.pos.reshape(nb, blk.BLOCK, 3).transpose(0, 2, 1)
-    hm_blocks = hm_sorted.reshape(nb, 1, blk.BLOCK).astype(jnp.float32)
-    h0_b = h0s.reshape(nb, blk.BLOCK)
-    cap_b = cap.reshape(nb, blk.BLOCK)
-    hm_b = h_box.reshape(nb, blk.BLOCK)
-
-    rho, h, vf, wk, done, delta = fused_wvt_pallas(
-        pos_t, hm_blocks, cand.idx, cand.count, pos_t, h0_b, cap_b,
-        hm_b, 1.0, BOX, kernel="wc6", desnngb=DESNNGB, n_sweeps=24,
-        interpret=True)
-
-    v = np.asarray(bi.valid)
-    done_x = np.asarray(res.done) & v
-    done_p = np.asarray(done).reshape(-1) & v
-    assert done_p.sum() >= 0.97 * done_x.sum()
-    both = done_x & done_p
-    np.testing.assert_allclose(np.asarray(h).reshape(-1)[both],
-                               np.asarray(res.hsml)[both], rtol=2e-3)
-    np.testing.assert_allclose(np.asarray(rho).reshape(-1)[both],
-                               np.asarray(res.rho)[both], rtol=2e-3)
-    wk_p = np.asarray(wk).reshape(-1)[both]
-    assert np.abs(wk_p - DESNNGB).max() < 0.05 + 1e-3
-
-    a = np.asarray(d_xla)[v]
-    b = np.asarray(delta).reshape(-1, 3)[v]
-    scale = np.abs(a).max()
-    np.testing.assert_allclose(b, a, rtol=2e-4, atol=1e-6 * scale)
-
-
-def test_pallas_displacement_matches_xla(setup):
-    from toycluster_tpu.ops.pallas_pair import wvt_displacement_pallas
-
-    bi, cand, h0s, cap = setup
-    nb = bi.n_blocks
-    h_box = h0s / BOX
-    sel = pair_ops.full_selection(bi, cand.idx)
-    d_xla = pair_ops.wvt_displacement(bi, sel, h_box, 0.01, BOX)
-
-    pos_t = bi.pos.reshape(nb, blk.BLOCK, 3).transpose(0, 2, 1)
-    valid_t = bi.valid.reshape(nb, 1, blk.BLOCK).astype(jnp.float32)
-    h_b = h_box.reshape(nb, blk.BLOCK)
-    h_b3 = h_box.reshape(nb, 1, blk.BLOCK)
-    d_pal = wvt_displacement_pallas(pos_t, valid_t, h_b3, cand.idx, pos_t,
-                                    h_b, 0.01, BOX, kernel="wc6",
-                                    interpret=True)
-    v = np.asarray(bi.valid)
-    a = np.asarray(d_xla)[v]
-    b = np.asarray(d_pal).reshape(-1, 3)[v]
-    scale = np.abs(a).max()
-    np.testing.assert_allclose(b, a, rtol=2e-4, atol=1e-6 * scale)
-
-
-def test_superblock_tail_mode_matches_block_lists(setup):
-    """Far-tail rows use SUPERBLOCK-granular candidate lists (sb_mode,
-    8x compression for receivers whose block lists would overflow the
-    cap): density and displacement must match the block-granular path."""
-    import jax.numpy as jnp
-    from toycluster_tpu.ops.pallas_pair import (solve_density_pallas,
-                                                wvt_displacement_pallas)
-
-    bi, cand, h0s, cap = setup
-    nb = bi.n_blocks
-    radius = cap.reshape(nb, blk.BLOCK).max(axis=1)
-    # superblock lists for a handful of "tail" receivers
-    rec = jnp.asarray(np.array([0, 3, nb - 1, -1], np.int32))
-    cand_sb = blk.find_candidates_super(bi, rec, radius, radius, BOX,
-                                        max_cand=max(4, bi.sb_lo.shape[0]))
-    assert int(cand_sb.overflow) <= 0
-
-    pos_t = bi.pos.reshape(nb, blk.BLOCK, 3).transpose(0, 2, 1)
-    valid_t = bi.valid.reshape(nb, 1, blk.BLOCK).astype(jnp.float32)
-    h0_b = h0s.reshape(nb, blk.BLOCK)
-    cap_b = cap.reshape(nb, blk.BLOCK)
-    idc = jnp.maximum(rec, 0)
-
-    rho_sb, h_sb, _, wk_sb, done_sb, _ = solve_density_pallas(
-        pos_t, valid_t, cand_sb.idx, pos_t[idc], h0_b[idc], cap_b[idc],
-        1.0, BOX, kernel="wc6", desnngb=DESNNGB, n_sweeps=24,
-        interpret=True, sb_mode=True)
-
-    # block-granular reference on the same receivers
-    rows = cand.idx[idc]
-    rows = jnp.where((rec >= 0)[:, None], rows, -1)
-    sel = pair_ops.BlockSelection(ids=rec, cand=rows)
-    res = pair_ops.solve_density(bi, sel, h0s, cap, 1.0, BOX,
-                                 kernel="wc6", desnngb=DESNNGB,
-                                 max_iter=24)
-    v = np.asarray(bi.valid).reshape(nb, blk.BLOCK)[np.maximum(
-        np.asarray(rec), 0)].reshape(-1)
-    v &= np.repeat(np.asarray(rec) >= 0, blk.BLOCK)
-    both = v & np.asarray(done_sb).reshape(-1) & np.asarray(res.done)
-    assert both.sum() > 0.9 * v.sum()
-    np.testing.assert_allclose(np.asarray(h_sb).reshape(-1)[both],
-                               np.asarray(res.hsml)[both], rtol=2e-3)
-    np.testing.assert_allclose(np.asarray(rho_sb).reshape(-1)[both],
-                               np.asarray(res.rho)[both], rtol=2e-3)
-
-    # displacement parity
-    h_box = h0s / BOX
-    h_b3 = h_box.reshape(nb, 1, blk.BLOCK)
-    h_b = h_box.reshape(nb, blk.BLOCK)
-    d_sb = wvt_displacement_pallas(
-        pos_t, valid_t, h_b3, cand_sb.idx, pos_t[idc], h_b[idc], 0.01,
-        BOX, kernel="wc6", interpret=True, sb_mode=True)
-    d_ref = pair_ops.wvt_displacement(bi, sel, h_box, 0.01, BOX)
-    a = np.asarray(d_ref)[v]
-    b = np.asarray(d_sb).reshape(-1, 3)[v]
-    np.testing.assert_allclose(b, a, rtol=2e-4,
-                               atol=1e-6 * max(np.abs(a).max(), 1e-30))
-
-    # the fused (VMEM-cached) kernel supports sb_mode too — used for
-    # small tail classes
-    from toycluster_tpu.ops.pallas_pair import fused_wvt_pallas
-    hm_src = jnp.where(bi.valid, h_box, 0.0)
-    hm_blocks = hm_src.reshape(nb, 1, blk.BLOCK).astype(jnp.float32)
-    cnt = jnp.where(rec >= 0, cand_sb.count, 0)
-    rho_f, h_f, _, _, done_f, d_f = fused_wvt_pallas(
-        pos_t, hm_blocks, cand_sb.idx, cnt, pos_t[idc], h0_b[idc],
-        cap_b[idc], h_b[idc], 1.0, BOX, kernel="wc6", desnngb=DESNNGB,
-        n_sweeps=24, interpret=True, sb_mode=True)
-    both_f = v & np.asarray(done_f).reshape(-1) & np.asarray(res.done)
-    np.testing.assert_allclose(np.asarray(h_f).reshape(-1)[both_f],
-                               np.asarray(res.hsml)[both_f], rtol=2e-3)
-    np.testing.assert_allclose(
-        np.asarray(d_f).reshape(-1, 3)[v] * 0.01, a, rtol=2e-4,
-        atol=1e-6 * max(np.abs(a).max(), 1e-30))
-
-
-def test_distance_skip_is_exact(setup):
-    """The per-candidate-block distance-skip (gdist/dkeep) prunes only
-    blocks whose every pair lies outside the kernel support, so the fused
-    kernel must return BIT-IDENTICAL results with and without it."""
-    from toycluster_tpu.ops.pallas_pair import fused_wvt_pallas
-
-    bi, cand, h0s, cap = setup
-    nb = bi.n_blocks
-    h_box = h0s / BOX
-    hm_src = jnp.where(bi.valid, h_box, 0.0)
-
-    pos_t = bi.pos.reshape(nb, blk.BLOCK, 3).transpose(0, 2, 1)
-    hm_blocks = hm_src.reshape(nb, 1, blk.BLOCK).astype(jnp.float32)
-    h0_b = h0s.reshape(nb, blk.BLOCK)
-    cap_b = cap.reshape(nb, blk.BLOCK)
-    hm_b = h_box.reshape(nb, blk.BLOCK)
-
-    base = fused_wvt_pallas(
-        pos_t, hm_blocks, cand.idx, cand.count, pos_t, h0_b, cap_b,
-        hm_b, 1.0, BOX, kernel="wc6", desnngb=DESNNGB, n_sweeps=24,
-        interpret=True)
-
-    # exact bounds from the block bboxes (as the production callers do)
-    rowsc = jnp.maximum(cand.idx, 0)
-    ids = jnp.arange(nb)
-    d2 = blk._interval_dist2(
-        bi.bb_lo[ids][:, None], bi.bb_hi[ids][:, None],
-        bi.bb_lo[rowsc], bi.bb_hi[rowsc], BOX)
-    gd = jnp.where(cand.idx >= 0, jnp.sqrt(d2), jnp.inf)
-    bhm = hm_src.reshape(nb, blk.BLOCK).max(axis=1)
-    hmi_max = hm_b.max(axis=1)
-    dk = gd <= 0.5 * (hmi_max[:, None] + bhm[rowsc]) * BOX
-
-    # sanity: the bounds actually prune something on this setup
-    assert bool((gd[cand.idx >= 0] > 0).any())
-
-    skip = fused_wvt_pallas(
-        pos_t, hm_blocks, cand.idx, cand.count, pos_t, h0_b, cap_b,
-        hm_b, 1.0, BOX, kernel="wc6", desnngb=DESNNGB, n_sweeps=24,
-        interpret=True, gdist=gd, dkeep=dk)
-
-    for a, b in zip(base, skip):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
 def test_stream_kernel_matches_xla(setup):
-    """The v3 stream kernel (grid over rows, in-kernel double-buffered
-    DMA with dynamic trip counts) must reproduce the XLA density solve
-    and displacement, block-lists and superblock (tail) mode alike."""
-    from toycluster_tpu.ops.pallas_pair import stream_wvt_pallas
+    """The stream kernel (programs over receiver rows, dynamic trip
+    counts over the candidate lists) must reproduce the XLA density
+    solve and displacement, block-lists and superblock (tail) mode
+    alike."""
+    from toycluster.ops.stream import stream_wvt
 
     bi, cand, h0s, cap = setup
     nb = bi.n_blocks
@@ -316,7 +90,7 @@ def test_stream_kernel_matches_xla(setup):
     bhm = hm_sorted.reshape(nb, blk.BLOCK).max(axis=1)
     dk = gd <= 0.5 * (hm_b.max(axis=1)[:, None] + bhm[rowsc]) * BOX
 
-    rho, h, vf, wk, done, delta = stream_wvt_pallas(
+    rho, h, vf, wk, done, delta = stream_wvt(
         src, cand.idx, cand.count, pos_t, h0_b, cap_b, hm_b, 1.0, BOX,
         gd, dk, kernel="wc6", desnngb=DESNNGB, n_sweeps=24,
         interpret=True)
@@ -343,7 +117,7 @@ def test_stream_kernel_matches_xla(setup):
                                         max_cand=max(4, bi.sb_lo.shape[0]))
     assert int(cand_sb.overflow) <= 0
     idc = jnp.maximum(rec, 0)
-    from toycluster_tpu.models.sph import expand_tail_rows
+    from toycluster.models.sph import expand_tail_rows
     exp = expand_tail_rows(cand_sb.idx, nb)
     rowsc = jnp.maximum(exp, 0)
     d2 = blk._interval_dist2(
@@ -353,7 +127,7 @@ def test_stream_kernel_matches_xla(setup):
     dks = gds <= 0.5 * (hm_b[idc].max(axis=1)[:, None]
                         + bhm[rowsc]) * BOX
     cnt = jnp.where(rec >= 0, cand_sb.count, 0)
-    rho_s, h_s, _, wk_s, done_s, d_s = stream_wvt_pallas(
+    rho_s, h_s, _, wk_s, done_s, d_s = stream_wvt(
         src, cand_sb.idx, cnt, pos_t[idc], h0_b[idc], cap_b[idc],
         hm_b[idc], 1.0, BOX, gds, dks, kernel="wc6", desnngb=DESNNGB,
         n_sweeps=24, interpret=True, sb_mode=True)
@@ -376,11 +150,11 @@ def test_stream_kernel_matches_xla(setup):
 
 
 def test_stream_wrap_fallback_small_box():
-    """Hoisted-wrap guard (ADVICE r1): in a small periodic box where
+    """Hoisted-wrap guard: in a small periodic box where
     receiver extent + pair range exceeds box/2, rows must fall back to
     per-pair min-image wrapping — densities must still match the XLA
     solver, which always wraps per pair."""
-    from toycluster_tpu.ops.pallas_pair import stream_wvt_pallas
+    from toycluster.ops.stream import stream_wvt
 
     box = 100.0
     n = 600
@@ -415,7 +189,7 @@ def test_stream_wrap_fallback_small_box():
     assert bool(jnp.any(ext_half.max(axis=1) + r_pair
                         >= 0.49 * box)), "test geometry too tame"
 
-    rho, h, vf, wk, done, delta = stream_wvt_pallas(
+    rho, h, vf, wk, done, delta = stream_wvt(
         src, cand.idx, cand.count, pos_t, h0_b, cap_b, hm_b, 1.0, box,
         kernel="wc6", desnngb=DESNNGB, n_sweeps=24, interpret=True)
 
@@ -438,8 +212,8 @@ def test_stream_wrap_fallback_small_box():
 def test_stream_count_clamp_overflowed_lists():
     """Counts larger than the list width (the _SB_WIDTH_CAP nearest-
     superblock truncation reports TRUE hit counts) must be clamped
-    in-kernel instead of indexing past the prefetched row."""
-    from toycluster_tpu.ops.pallas_pair import stream_wvt_pallas
+    in-kernel instead of indexing past the list row."""
+    from toycluster.ops.stream import stream_wvt
 
     box = 1000.0
     n = 700
@@ -463,7 +237,7 @@ def test_stream_count_clamp_overflowed_lists():
     pos_t = bi.pos.reshape(nb, blk.BLOCK, 3).transpose(0, 2, 1)
     hm = jnp.where(bi.valid, h0 / box, 0.0)
     src = jnp.concatenate([pos_t, hm.reshape(nb, 1, blk.BLOCK)], axis=1)
-    rho, h, vf, wk, done, delta = stream_wvt_pallas(
+    rho, h, vf, wk, done, delta = stream_wvt(
         src, cand_sb.idx, cand_sb.count, pos_t,
         h0.reshape(nb, blk.BLOCK), cap.reshape(nb, blk.BLOCK),
         (h0 / box).reshape(nb, blk.BLOCK), 1.0, box,
@@ -480,8 +254,8 @@ def test_skip_bits_prune_exact_zeros(setup):
     """The stream_skip_bits gates (per-block density skip / disp keep)
     prune exact-zero contributions ONLY: results must be bit-identical
     to the ungated inline path."""
-    from toycluster_tpu.ops.pallas_pair import (stream_skip_bits,
-                                                stream_wvt_pallas)
+    from toycluster.ops.stream import (stream_skip_bits,
+                                                stream_wvt)
 
     bi, cand, h0s, cap = setup
     nb = bi.n_blocks
@@ -503,7 +277,7 @@ def test_skip_bits_prune_exact_zeros(setup):
 
     kw = dict(kernel="wc6", desnngb=DESNNGB, n_sweeps=24,
               interpret=True, sb_mode=True)
-    base = stream_wvt_pallas(src, cand_sb.idx, cand_sb.count, pos_t,
+    base = stream_wvt(src, cand_sb.idx, cand_sb.count, pos_t,
                              h0_b, cap_b, hm_b, 1.0, BOX, **kw)
 
     bhm = hm_sorted.reshape(nb, blk.BLOCK).max(axis=1)
@@ -514,7 +288,7 @@ def test_skip_bits_prune_exact_zeros(setup):
     frac = _np.mean([(int(w) >> (2 * k)) & 1
                      for w in _np.asarray(bits).reshape(-1)
                      for k in range(16)])
-    gated = stream_wvt_pallas(src, cand_sb.idx, cand_sb.count, pos_t,
+    gated = stream_wvt(src, cand_sb.idx, cand_sb.count, pos_t,
                               h0_b, cap_b, hm_b, 1.0, BOX, **kw,
                               bits=bits, safe=safe)
     for a, b in zip(base, gated):
@@ -534,7 +308,7 @@ def test_skip_bits_prune_exact_zeros(setup):
     bits_b, safe_b = stream_skip_bits(
         bi.bb_lo, bi.bb_hi, bhm, rec, cand_sb.idx, cap_b, hm_b,
         float(BOX), sb=True, bucket_ids=b_ids, bucket_widths=b_w)
-    bucketed = stream_wvt_pallas(src, cand_sb.idx, cand_sb.count, pos_t,
+    bucketed = stream_wvt(src, cand_sb.idx, cand_sb.count, pos_t,
                                  h0_b, cap_b, hm_b, 1.0, BOX, **kw,
                                  bits=bits_b, safe=safe_b)
     for a, b in zip(base, bucketed):
@@ -544,12 +318,12 @@ def test_skip_bits_prune_exact_zeros(setup):
 def test_compacted_lists_are_exact(setup):
     """Per-iteration superblock-list compaction (compact_sb_lists)
     reorders each row's streamed list to useful-first and shrinks the
-    trip count; the prefetched slot map keeps the full-width skip bits
+    trip count; the slot map keeps the full-width skip bits
     addressable, so results must be BIT-IDENTICAL to the uncompacted
     stream — and the compaction must actually drop visits."""
-    from toycluster_tpu.ops.pallas_pair import (compact_sb_lists,
+    from toycluster.ops.stream import (compact_sb_lists,
                                                 stream_skip_bits,
-                                                stream_wvt_pallas)
+                                                stream_wvt)
 
     bi, cand, h0s, cap = setup
     nb = bi.n_blocks
@@ -587,7 +361,7 @@ def test_compacted_lists_are_exact(setup):
 
     kw = dict(kernel="wc6", desnngb=DESNNGB, n_sweeps=24,
               interpret=True, sb_mode=True, bits=bits, safe=safe)
-    base = stream_wvt_pallas(src, cand_sb.idx, cand_sb.count, pos_t,
+    base = stream_wvt(src, cand_sb.idx, cand_sb.count, pos_t,
                              h0_b, cap_b, hm_b, 1.0, BOX, **kw)
 
     cand_it, pos_it, cnt_it = compact_sb_lists(
@@ -595,84 +369,10 @@ def test_compacted_lists_are_exact(setup):
     dropped = int(jnp.sum(jnp.minimum(
         cand_sb.count, cand_sb.idx.shape[1])) - jnp.sum(cnt_it))
     assert dropped == int(force.sum())
-    compacted = stream_wvt_pallas(src, cand_it, cnt_it, pos_t,
+    compacted = stream_wvt(src, cand_it, cnt_it, pos_t,
                                   h0_b, cap_b, hm_b, 1.0, BOX, **kw,
                                   cand_pos=pos_it)
     for a, b in zip(base, compacted):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-@pytest.mark.slow
-def test_inkernel_bits_matches_precomputed(setup):
-    """TOYCLUSTER_IK_BITS path: stage-A superblock-HULL bits compact
-    the lists (conservative superset of the member-level test) and the
-    stream kernel computes the member-level skip test itself during
-    sweep 0, caching the packed words in SMEM scratch for the later
-    density sweeps.  Both gate only exact-zero tiles, so results must
-    be BIT-IDENTICAL to the precomputed member-level bits path."""
-    from toycluster_tpu.ops.pallas_pair import (compact_sb_lists_agg,
-                                                stream_skip_bits,
-                                                stream_wvt_pallas)
-
-    bi, cand, h0s, cap = setup
-    nb = bi.n_blocks
-    h_box = h0s / BOX
-    hm_sorted = jnp.where(bi.valid, h_box, 0.0)
-    pos_t = bi.pos.reshape(nb, blk.BLOCK, 3).transpose(0, 2, 1)
-    src = jnp.concatenate(
-        [pos_t, hm_sorted.reshape(nb, 1, blk.BLOCK)], axis=1)
-    h0_b = h0s.reshape(nb, blk.BLOCK)
-    cap_b = cap.reshape(nb, blk.BLOCK)
-    hm_b = h_box.reshape(nb, blk.BLOCK)
-
-    radius = cap_b.max(axis=1)
-    rec = jnp.arange(nb, dtype=jnp.int32)
-    cand_sb = blk.find_candidates_super(
-        bi, rec, radius, hm_b.max(axis=1) * BOX, BOX,
-        max_cand=max(4, bi.sb_lo.shape[0]))
-    assert int(cand_sb.overflow) <= 0
-    bhm = hm_sorted.reshape(nb, blk.BLOCK).max(axis=1)
-
-    kw = dict(kernel="wc6", desnngb=DESNNGB, n_sweeps=24,
-              interpret=True, sb_mode=True)
-    bits, safe = stream_skip_bits(
-        bi.bb_lo, bi.bb_hi, bhm, rec, cand_sb.idx, cap_b, hm_b,
-        float(BOX), sb=True)
-    base = stream_wvt_pallas(src, cand_sb.idx, cand_sb.count, pos_t,
-                             h0_b, cap_b, hm_b, 1.0, BOX, **kw,
-                             bits=bits, safe=safe)
-
-    bits_sb, safe_a = stream_skip_bits(
-        bi.bb_lo, bi.bb_hi, bhm, rec, cand_sb.idx, cap_b, hm_b,
-        float(BOX), agg=True)
-    np.testing.assert_array_equal(np.asarray(safe), np.asarray(safe_a))
-    cand_it, cnt_it = compact_sb_lists_agg(
-        cand_sb.idx, cand_sb.count, bits_sb, do_disp=True)
-    cen_blk = 0.5 * (bi.bb_lo + bi.bb_hi)
-    ext_blk = 0.5 * (bi.bb_hi - bi.bb_lo)
-    rowq = jnp.concatenate(
-        [cen_blk, ext_blk, cap_b.max(axis=1)[:, None],
-         hm_b.max(axis=1)[:, None]], axis=1).astype(jnp.float32)
-    mtab = jnp.concatenate(
-        [cen_blk, ext_blk, bhm[:, None],
-         jnp.zeros((nb, 1), jnp.float32)], axis=1).astype(jnp.float32)
-    ik = stream_wvt_pallas(src, cand_it, cnt_it, pos_t, h0_b, cap_b,
-                           hm_b, 1.0, BOX, **kw, safe=safe_a,
-                           rowq=rowq, mtab=mtab, inkernel_bits=True)
-    for a, b in zip(base, ik):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-    # density-only variant (find_sph_quantities path)
-    kwd = dict(kw, do_disp=False)
-    base_d = stream_wvt_pallas(src, cand_sb.idx, cand_sb.count, pos_t,
-                               h0_b, cap_b, hm_b, 1.0, BOX, **kwd,
-                               bits=bits, safe=safe)
-    cand_d, cnt_d = compact_sb_lists_agg(
-        cand_sb.idx, cand_sb.count, bits_sb, do_disp=False)
-    ik_d = stream_wvt_pallas(src, cand_d, cnt_d, pos_t, h0_b, cap_b,
-                             hm_b, 1.0, BOX, **kwd, safe=safe_a,
-                             rowq=rowq, mtab=mtab, inkernel_bits=True)
-    for a, b in zip(base_d[:5], ik_d[:5]):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
@@ -683,9 +383,9 @@ def test_chunk_bits_prune_exact_zeros(setup):
     tiles ONLY: kernel outputs bit-identical to the member-bbox gating
     (pruned tiles contribute +0.0 and the stable stream order of the
     surviving tiles is unchanged)."""
-    from toycluster_tpu.ops.pallas_pair import (build_chunk_tab,
+    from toycluster.ops.stream import (build_chunk_tab,
                                                 stream_skip_bits,
-                                                stream_wvt_pallas)
+                                                stream_wvt)
 
     bi, cand, h0s, cap = setup
     nb = bi.n_blocks
@@ -724,19 +424,18 @@ def test_chunk_bits_prune_exact_zeros(setup):
     # subset: every chunk-kept member is member-bbox-kept
     assert (dens_keep_c & ~dens_keep_m).sum() == 0
     assert (disp_keep_c & ~disp_keep_m).sum() == 0
-    # never keeps more (strict pruning shows up at production N — the
-    # r05 TPU audit measured union kept 92 -> needed 51 per row at 1e6;
-    # this dense little fixture may have no prunable member at all)
+    # never keeps more (strict pruning shows up at production N; this
+    # dense little fixture may have no prunable member at all)
     n_m = sum(bin(int(x)).count("1") for x in dens_keep_m.reshape(-1))
     n_c = sum(bin(int(x)).count("1") for x in dens_keep_c.reshape(-1))
     assert n_c <= n_m
 
     kw = dict(kernel="wc6", desnngb=DESNNGB, n_sweeps=24,
               interpret=True, sb_mode=True)
-    out_m = stream_wvt_pallas(src, cand_sb.idx, cand_sb.count, pos_t,
+    out_m = stream_wvt(src, cand_sb.idx, cand_sb.count, pos_t,
                               h0_b, cap_b, hm_b, 1.0, BOX, **kw,
                               bits=bits_m, safe=safe_m)
-    out_c = stream_wvt_pallas(src, cand_sb.idx, cand_sb.count, pos_t,
+    out_c = stream_wvt(src, cand_sb.idx, cand_sb.count, pos_t,
                               h0_b, cap_b, hm_b, 1.0, BOX, **kw,
                               bits=bits_c, safe=safe_c)
     for a, b in zip(out_m, out_c):
@@ -744,9 +443,9 @@ def test_chunk_bits_prune_exact_zeros(setup):
 
 
 def test_stream_curl_matches_xla(setup):
-    """stream_curl_pallas must reproduce pair_ops.sph_curl (Price 2010
+    """stream_curl must reproduce pair_ops.sph_curl (Price 2010
     eq. 79, sph.c:216-300) in block-list and superblock mode."""
-    from toycluster_tpu.ops.pallas_pair import stream_curl_pallas
+    from toycluster.ops.stream import stream_curl
 
     bi, cand, h0s, cap = setup
     nb = bi.n_blocks
@@ -775,7 +474,7 @@ def test_stream_curl_matches_xla(setup):
     wfac_b = jnp.where(bi.valid, -1.0 * vf_s / rho_s,
                        0.0).reshape(nb, blk.BLOCK)
 
-    b_str = stream_curl_pallas(src8, cand.idx, cand.count, pos_t, h_b,
+    b_str = stream_curl(src8, cand.idx, cand.count, pos_t, h_b,
                                wfac_b, ap_t, 1.0, BOX, kernel="wc6",
                                interpret=True)
     a = np.asarray(b_xla).reshape(-1, 3)[np.asarray(bi.valid)]
@@ -790,7 +489,7 @@ def test_stream_curl_matches_xla(setup):
         bi, ids, radius, radius, BOX,
         max_cand=max(4, bi.sb_lo.shape[0]))
     assert int(cand_sb.overflow) <= 0
-    b_sb = stream_curl_pallas(src8, cand_sb.idx, cand_sb.count, pos_t,
+    b_sb = stream_curl(src8, cand_sb.idx, cand_sb.count, pos_t,
                               h_b, wfac_b, ap_t, 1.0, BOX, kernel="wc6",
                               sb_mode=True, interpret=True)
     b2 = np.asarray(b_sb).reshape(-1, 3)[np.asarray(bi.valid)]
@@ -798,7 +497,7 @@ def test_stream_curl_matches_xla(setup):
 
 
 def test_stream_curl_m4(setup):
-    from toycluster_tpu.ops.pallas_pair import stream_curl_pallas
+    from toycluster.ops.stream import stream_curl
 
     bi, cand, h0s, cap = setup
     nb = bi.n_blocks
@@ -818,7 +517,7 @@ def test_stream_curl_m4(setup):
     src8 = jnp.concatenate(
         [pos_t, valid_b, ap_t,
          jnp.zeros((nb, 1, blk.BLOCK), jnp.float32)], axis=1)
-    b_str = stream_curl_pallas(
+    b_str = stream_curl(
         src8, cand.idx, cand.count, pos_t,
         res.hsml.reshape(nb, blk.BLOCK),
         jnp.where(bi.valid, -vf_s / rho_s, 0.0).reshape(nb, blk.BLOCK),

@@ -4,15 +4,15 @@ kinematics -> Gadget write -> read back (the bf=0 path of main.c:50)."""
 import numpy as np
 import pytest
 
-from toycluster_tpu import parse_par_file
-from toycluster_tpu.io.gadget import read_snapshot
-from toycluster_tpu.pipeline import make_ics
-from toycluster_tpu.utils.logging import silent_log
+from toycluster import STOCK_PAR, parse_par_file
+from toycluster.io.gadget import read_snapshot
+from toycluster.pipeline import make_ics
+from toycluster.utils.logging import silent_log
 
 
 def test_dm_only_end_to_end(tmp_path):
     out = str(tmp_path / "ic_dm")
-    cfg = parse_par_file("/root/reference/cluster.par").replace(
+    cfg = parse_par_file(STOCK_PAR).replace(
         ntotal=10000, baryon_fraction=0.0, output_file=out)
     scene, parts = make_ics(cfg, log=silent_log)
 
@@ -38,7 +38,7 @@ def test_dm_only_end_to_end(tmp_path):
 
 def test_merger_dm_only_comet(tmp_path):
     out = str(tmp_path / "ic_merger")
-    cfg = parse_par_file("/root/reference/cluster.par").replace(
+    cfg = parse_par_file(STOCK_PAR).replace(
         ntotal=8000, baryon_fraction=0.0, mass_ratio=0.5, output_file=out)
     scene, parts = make_ics(cfg, log=silent_log)
     snap = read_snapshot(out)

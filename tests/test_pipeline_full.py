@@ -5,16 +5,16 @@ reassign -> temperatures -> velocities -> kinematics -> snapshot)."""
 import numpy as np
 import pytest
 
-from toycluster_tpu import parse_par_file
-from toycluster_tpu.io.gadget import read_snapshot
-from toycluster_tpu.pipeline import make_ics
-from toycluster_tpu.utils.logging import silent_log
+from toycluster import STOCK_PAR, parse_par_file
+from toycluster.io.gadget import read_snapshot
+from toycluster.pipeline import make_ics
+from toycluster.utils.logging import silent_log
 
 
 @pytest.fixture(scope="module")
 def result(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("ics") / "ic_full")
-    cfg = parse_par_file("/root/reference/cluster.par").replace(
+    cfg = parse_par_file(STOCK_PAR).replace(
         ntotal=6000, wvt_max_iter=6, output_file=out)
     # check=True audits the neighbour engine against direct summation
     scene, parts = make_ics(cfg, log=silent_log, check=True)
@@ -87,12 +87,12 @@ def test_internal_energy_tracks_analytic():
     by the rcut^4 taper in the tabulated gas mass (~20% here), so the
     oracle catches unit/sign/shape regressions, not the taper."""
     import jax.numpy as jnp
-    from toycluster_tpu.scene import build_scene
-    from toycluster_tpu.models.tables import build_energy_table
-    from toycluster_tpu.models.temperature import internal_energy_analytic
-    from toycluster_tpu.ops.interp import SplineTable, spline_eval
+    from toycluster.scene import build_scene
+    from toycluster.models.tables import build_energy_table
+    from toycluster.models.temperature import internal_energy_analytic
+    from toycluster.ops.interp import SplineTable, spline_eval
 
-    cfg = parse_par_file("/root/reference/cluster.par").replace(
+    cfg = parse_par_file(STOCK_PAR).replace(
         ntotal=20000)
     scene = build_scene(cfg)
     h = scene.halos[0]
@@ -129,7 +129,7 @@ def test_wvt_converges_to_model(result_m4):
 @pytest.fixture(scope="module")
 def result_m4(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("ics") / "ic_m4")
-    cfg = parse_par_file("/root/reference/cluster.par").replace(
+    cfg = parse_par_file(STOCK_PAR).replace(
         ntotal=16000, wvt_max_iter=14, sph_kernel="m4", output_file=out)
     scene, parts = make_ics(cfg, log=silent_log)
     return scene, parts, read_snapshot(out)
@@ -159,10 +159,10 @@ def test_substructure_merger_end_to_end(tmp_path_factory):
     substructure) through the FULL pipeline: subhalo gas bulk velocities
     are WC2-tapered (velocities.c:119-151) and subhalo |B| respects the
     2 uG cap (magnetic_field.c:113-114)."""
-    from toycluster_tpu.models.bfield import BMAX_SUB
+    from toycluster.models.bfield import BMAX_SUB
 
     out = str(tmp_path_factory.mktemp("ics") / "ic_sub")
-    cfg = parse_par_file("/root/reference/cluster.par").replace(
+    cfg = parse_par_file(STOCK_PAR).replace(
         ntotal=12000, wvt_max_iter=5, sph_kernel="m4",
         mass_ratio=1.0 / 3.0, substructure=True, report_subhalos=True,
         output_file=out)
@@ -178,7 +178,7 @@ def test_substructure_merger_end_to_end(tmp_path_factory):
         assert (b[sub_gas] <= BMAX_SUB * (1 + 1e-5)).all()
     # merger kinematics are fixed in Setup() BEFORE substructure
     # (main.c:40-44): the substructure population must not alter them
-    from toycluster_tpu.scene import build_scene
+    from toycluster.scene import build_scene
     base = build_scene(cfg.replace(substructure=False))
     v0, v1 = scene.vel_merger
     assert v0 * v1 < 0

@@ -2,16 +2,16 @@ import jax
 import numpy as np
 import pytest
 
-from toycluster_tpu import parse_par_file
-from toycluster_tpu.models import profiles
-from toycluster_tpu.models.ids import id_stride, make_ids
-from toycluster_tpu.models import positions as pos_mod
-from toycluster_tpu.particles import halo_arrays_from_scene
-from toycluster_tpu.scene import build_scene
+from toycluster import STOCK_PAR, parse_par_file
+from toycluster.models import profiles
+from toycluster.models.ids import id_stride, make_ids
+from toycluster.models import positions as pos_mod
+from toycluster.particles import halo_arrays_from_scene
+from toycluster.scene import build_scene
 
 
 def cfg_small(**kw):
-    return parse_par_file("/root/reference/cluster.par").replace(
+    return parse_par_file(STOCK_PAR).replace(
         ntotal=20000, **kw)
 
 
@@ -149,7 +149,7 @@ def test_mass_census_matches_mass200():
     """Show_mass_in_r200 (positions.c:142-216): the sampled mass inside
     each halo's R200 must reproduce its Mass200 within sampling noise —
     the reference's headline sampling oracle."""
-    cfg = parse_par_file("/root/reference/cluster.par").replace(
+    cfg = parse_par_file(STOCK_PAR).replace(
         ntotal=40000, mass_ratio=0.5)
     scene = build_scene(cfg)
     ha = halo_arrays_from_scene(scene)
@@ -158,7 +158,7 @@ def test_mass_census_matches_mass200():
 
     recs = pos_mod.show_mass_in_r200(scene, parts)
     assert len(recs) == 2
-    from toycluster_tpu import constants as const
+    from toycluster import constants as const
     for rec, h in zip(recs, scene.halos):
         m200_msol = h.mtotal200 * scene.units.mass / const.MSOL2CGS
         # two-halo overlap + finite-N noise: the census must land within
@@ -179,9 +179,9 @@ def test_stage_tables_render():
     headline numbers."""
     import io
     import sys
-    from toycluster_tpu.utils import logging as tlog
+    from toycluster.utils import logging as tlog
 
-    cfg = parse_par_file("/root/reference/cluster.par").replace(
+    cfg = parse_par_file(STOCK_PAR).replace(
         ntotal=2000, mass_ratio=0.5)
     scene = build_scene(cfg)
     cap = io.StringIO()

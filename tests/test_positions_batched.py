@@ -8,19 +8,19 @@ import numpy as np
 import pytest
 from scipy import stats
 
-from toycluster_tpu import parse_par_file
-from toycluster_tpu.models import positions as pos_mod
-from toycluster_tpu.particles import halo_arrays_from_scene
-from toycluster_tpu.scene import build_scene
+from toycluster import STOCK_PAR, parse_par_file
+from toycluster.models import positions as pos_mod
+from toycluster.particles import halo_arrays_from_scene
+from toycluster.scene import build_scene
 
 
 @pytest.fixture(scope="module")
 def sub_scene():
-    cfg = parse_par_file("/root/reference/cluster.par").replace(
+    cfg = parse_par_file(STOCK_PAR).replace(
         ntotal=60000, mass_ratio=1.0 / 3.0, substructure=True,
         sph_kernel="m4")
     scene = build_scene(cfg)
-    from toycluster_tpu.models.substructure import setup_substructure
+    from toycluster.models.substructure import setup_substructure
     scene = setup_substructure(scene, seed=11)
     return scene, halo_arrays_from_scene(scene)
 

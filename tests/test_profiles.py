@@ -1,12 +1,12 @@
 import numpy as np
 import pytest
 
-from toycluster_tpu import constants as const
-from toycluster_tpu.models import profiles
-from toycluster_tpu.models.tables import (build_mass_table,
+from toycluster import constants as const
+from toycluster.models import profiles
+from toycluster.models.tables import (build_mass_table,
                                           build_potential_table,
                                           build_energy_table)
-from toycluster_tpu.utils.splines import NaturalSpline
+from toycluster.utils.splines import NaturalSpline
 
 
 def test_natural_spline_matches_function():

@@ -3,13 +3,13 @@ import math
 import numpy as np
 import pytest
 
-from toycluster_tpu import constants as const
-from toycluster_tpu import parse_par_file
-from toycluster_tpu.scene import build_scene
+from toycluster import STOCK_PAR, constants as const
+from toycluster import parse_par_file
+from toycluster.scene import build_scene
 
 
 def small_cfg(**kw):
-    cfg = parse_par_file("/root/reference/cluster.par")
+    cfg = parse_par_file(STOCK_PAR)
     return cfg.replace(ntotal=20000, **kw)
 
 

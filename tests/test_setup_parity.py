@@ -1,7 +1,6 @@
 """Numeric parity of the repo's scene construction against the COMPILED
 reference Setup() (setup.c:21-344 built unmodified by
-tests/golden/build.sh with gslstub QAG + cspline; VERDICT r4 missing
-#2).  The goldens (setup_table_*.txt) are PARITY lines printed by
+tests/golden/build.sh with gslstub QAG + cspline).  The goldens (setup_table_*.txt) are PARITY lines printed by
 tests/golden/gen_setup.c for the stock cluster.par (single halo) and a
 merger variant (Mass_Ratio=0.3125, Cuspy=1 — exercises the two-halo
 orbit, cuspy core radius, and zero-energy velocity paths)."""
@@ -11,8 +10,8 @@ import os
 
 import pytest
 
-from toycluster_tpu import parse_par_file
-from toycluster_tpu.scene import build_scene
+from toycluster import STOCK_PAR, parse_par_file
+from toycluster.scene import build_scene
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 RTOL = 1e-5
@@ -84,11 +83,11 @@ def _check(scene, glob, halos):
 def test_setup_parity_single():
     glob, halos = _load(os.path.join(GOLDEN_DIR,
                                      "setup_table_cluster.txt"))
-    _check(_scene("/root/reference/cluster.par"), glob, halos)
+    _check(_scene(STOCK_PAR), glob, halos)
 
 
 def test_setup_parity_merger_cuspy():
     glob, halos = _load(os.path.join(GOLDEN_DIR,
                                      "setup_table_merger.txt"))
-    _check(_scene("/root/reference/cluster.par", mass_ratio=0.3125,
+    _check(_scene(STOCK_PAR, mass_ratio=0.3125,
                   cuspy=1), glob, halos)

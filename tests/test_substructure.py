@@ -3,19 +3,19 @@ import math
 import numpy as np
 import pytest
 
-from toycluster_tpu import parse_par_file
-from toycluster_tpu.models import profiles
-from toycluster_tpu.models.substructure import (
+from toycluster import STOCK_PAR, parse_par_file
+from toycluster.models import profiles
+from toycluster.models.substructure import (
     gao04_radius_fraction, nfw_mass, setup_substructure,
     subhalo_mass_function, MIN_DENSITY_CONTRAST)
-from toycluster_tpu.scene import build_scene
+from toycluster.scene import build_scene
 
 
 @pytest.fixture(scope="module")
 def sub_scene():
     # ntotal large enough that MIN_SUBHALO_MASS < the Giocoli mass cap,
     # so the mass function actually gets sampled (substructure.c:116-160)
-    cfg = parse_par_file("/root/reference/cluster.par").replace(
+    cfg = parse_par_file(STOCK_PAR).replace(
         ntotal=200000, sph_kernel="m4", substructure=True)
     base = build_scene(cfg)
     return base, setup_substructure(base, seed=5)
@@ -99,8 +99,8 @@ def test_sampling_with_substructure(sub_scene):
     """End-to-end position sampling over host + subhalos: ownership rules
     must place each subhalo's DM inside its sampling sphere."""
     import jax
-    from toycluster_tpu.models import positions as pos_mod
-    from toycluster_tpu.particles import halo_arrays_from_scene
+    from toycluster.models import positions as pos_mod
+    from toycluster.particles import halo_arrays_from_scene
 
     base, scene = sub_scene
     ha = halo_arrays_from_scene(scene)

@@ -6,13 +6,13 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from toycluster_tpu import parse_par_file
-from toycluster_tpu.models import positions as pos_mod
-from toycluster_tpu.models import temperature as temp_mod
-from toycluster_tpu.models.tables import build_energy_table
-from toycluster_tpu.ops.interp import SplineTable, spline_eval
-from toycluster_tpu.particles import halo_arrays_from_scene
-from toycluster_tpu.scene import build_scene
+from toycluster import STOCK_PAR, parse_par_file
+from toycluster.models import positions as pos_mod
+from toycluster.models import temperature as temp_mod
+from toycluster.models.tables import build_energy_table
+from toycluster.ops.interp import SplineTable, spline_eval
+from toycluster.particles import halo_arrays_from_scene
+from toycluster.scene import build_scene
 
 
 def _loop_reference_u(scene, parts):
@@ -41,7 +41,7 @@ def _loop_reference_u(scene, parts):
 
 
 def test_batched_matches_masked_loop_two_halo():
-    cfg = parse_par_file("/root/reference/cluster.par").replace(
+    cfg = parse_par_file(STOCK_PAR).replace(
         ntotal=8000, mass_ratio=1.0)
     scene = build_scene(cfg)
     ha = halo_arrays_from_scene(scene)

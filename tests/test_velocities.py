@@ -2,11 +2,11 @@ import jax
 import numpy as np
 import pytest
 
-from toycluster_tpu import parse_par_file
-from toycluster_tpu.models import positions as pos_mod
-from toycluster_tpu.models import velocities as vel_mod
-from toycluster_tpu.particles import halo_arrays_from_scene
-from toycluster_tpu.scene import build_scene
+from toycluster import STOCK_PAR, parse_par_file
+from toycluster.models import positions as pos_mod
+from toycluster.models import velocities as vel_mod
+from toycluster.particles import halo_arrays_from_scene
+from toycluster.scene import build_scene
 
 
 def hernquist_sigma_r2(r, m, a, G):
@@ -19,7 +19,7 @@ def hernquist_sigma_r2(r, m, a, G):
 
 @pytest.fixture(scope="module")
 def dm_only():
-    cfg = parse_par_file("/root/reference/cluster.par").replace(
+    cfg = parse_par_file(STOCK_PAR).replace(
         ntotal=30000, baryon_fraction=0.0)
     scene = build_scene(cfg)
     ha = halo_arrays_from_scene(scene)

@@ -17,10 +17,10 @@ import numpy as np
 import pytest
 from scipy.stats import ks_2samp
 
-from toycluster_tpu import parse_par_file
-from toycluster_tpu.models import velocities as vel_mod
-from toycluster_tpu.models.eddington import RMIN, build_distribution_function
-from toycluster_tpu.scene import build_scene
+from toycluster import STOCK_PAR, parse_par_file
+from toycluster.models import velocities as vel_mod
+from toycluster.models.eddington import RMIN, build_distribution_function
+from toycluster.scene import build_scene
 
 N_PER_BIN = 4000
 N_BINS = 8
@@ -78,7 +78,7 @@ def _ks_parity(cfg, halo_idx=0):
         res = ks_2samp(v_ref, v_cdf)
         if res.pvalue < worst[2]:
             worst = (r, res.statistic, res.pvalue)
-        # p > 0.01 at every radius bin (VERDICT r3 item 6); D at
+        # p > 0.01 at every radius bin; D at
         # N=4000/4000 p=0.01 is ~0.036
         assert res.pvalue > 0.01, (
             f"KS parity failed at r={r:.3g}: D={res.statistic:.4f} "
@@ -87,14 +87,14 @@ def _ks_parity(cfg, halo_idx=0):
 
 
 def test_speed_distribution_parity_dm_only():
-    cfg = parse_par_file("/root/reference/cluster.par").replace(
+    cfg = parse_par_file(STOCK_PAR).replace(
         ntotal=20000, baryon_fraction=0.0)
     r, d, p = _ks_parity(cfg)
     print(f"dm-only worst bin: r={r:.4g} D={d:.4f} p={p:.4g}")
 
 
 def test_speed_distribution_parity_gas_potential():
-    cfg = parse_par_file("/root/reference/cluster.par").replace(
+    cfg = parse_par_file(STOCK_PAR).replace(
         ntotal=20000)
     r, d, p = _ks_parity(cfg)
     print(f"gas-potential worst bin: r={r:.4g} D={d:.4f} p={p:.4g}")

@@ -1,13 +1,13 @@
 """Unit tests for the candidate-width stickiness policy
 (sph._trim_and_buckets) and the iteration-dependent accept band
-(wvt._accept_band) — the round-5 cold-start fixes (PROFILE_r09 §3)."""
+(wvt._accept_band) — the cold-start fixes."""
 
 import jax.numpy as jnp
 import numpy as np
 
-from toycluster_tpu.models import sph
-from toycluster_tpu.models.wvt import _accept_band
-from toycluster_tpu.ops.blocks import CandidateList
+from toycluster.models import sph
+from toycluster.models.wvt import _accept_band
+from toycluster.ops.blocks import CandidateList
 
 
 def _cand(nb_rows, width, max_count):

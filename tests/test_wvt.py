@@ -7,13 +7,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from toycluster_tpu import parse_par_file
-from toycluster_tpu.models import positions as pos_mod
-from toycluster_tpu.models import sph as sph_mod
-from toycluster_tpu.models import wvt
-from toycluster_tpu.particles import halo_arrays_from_scene
-from toycluster_tpu.scene import build_scene
-from toycluster_tpu.utils.logging import silent_log
+from toycluster import STOCK_PAR, parse_par_file
+from toycluster.models import positions as pos_mod
+from toycluster.models import sph as sph_mod
+from toycluster.models import wvt
+from toycluster.particles import halo_arrays_from_scene
+from toycluster.scene import build_scene
+from toycluster.utils.logging import silent_log
 
 
 @pytest.fixture(scope="module")
@@ -21,7 +21,7 @@ def relaxed():
     # the M4/cubic-spline variant (DESNNGB=50) resolves convergence at
     # test-scale particle counts; WC6's 295-neighbour contract needs the
     # production N ~ 1e6 (covered by bench.py)
-    cfg = parse_par_file("/root/reference/cluster.par").replace(
+    cfg = parse_par_file(STOCK_PAR).replace(
         ntotal=8000, wvt_max_iter=12, sph_kernel="m4")
     scene = build_scene(cfg)
     ha = halo_arrays_from_scene(scene)
@@ -82,7 +82,7 @@ def test_rebuild_every_equivalence(monkeypatch):
     must track the rebuild-every-iteration reference behavior
     (wvt_relax.c:6) to float32 pair-sum noise — a regression here means
     displacement pairs are being truncated between rebuilds."""
-    cfg = parse_par_file("/root/reference/cluster.par").replace(
+    cfg = parse_par_file(STOCK_PAR).replace(
         ntotal=8000, wvt_max_iter=9, sph_kernel="m4")
     scene = build_scene(cfg)
     ha = halo_arrays_from_scene(scene)
@@ -127,61 +127,13 @@ def test_rebuild_every_equivalence(monkeypatch):
     np.testing.assert_allclose(rho8, rho1, rtol=2e-2)
 
 
-@pytest.mark.slow
-def test_wvt_loop_inkernel_bits_wiring(monkeypatch):
-    """End-to-end wiring of the TOYCLUSTER_IK_BITS path through the
-    production pallas branch of the WVT iteration (interpret mode on
-    CPU): the in-kernel member test + stage-A hull compaction must
-    reproduce the default precomputed-bits iteration EXACTLY, including
-    across a rebuild."""
-    from functools import partial
-
-    from toycluster_tpu.ops import pallas_pair
-
-    monkeypatch.setenv("TOYCLUSTER_ENGINE", "pallas")
-    monkeypatch.setattr(
-        pallas_pair, "stream_wvt_pallas",
-        partial(pallas_pair.stream_wvt_pallas, interpret=True))
-
-    cfg = parse_par_file("/root/reference/cluster.par").replace(
-        ntotal=3000, wvt_max_iter=3, sph_kernel="m4")
-    scene = build_scene(cfg)
-    ha = halo_arrays_from_scene(scene)
-    key = jax.random.PRNGKey(5)
-    parts0 = pos_mod.make_positions(key, scene, ha)
-    parts0 = pos_mod.shift_origin(parts0, ha, scene.boxsize)
-
-    def run(ik):
-        monkeypatch.setattr(wvt, "_IK_BITS", ik)
-        return wvt.regularise_sph_particles(scene, ha, parts0,
-                                            log=silent_log)
-
-    ref = run(False)
-    new = run(True)
-    np.testing.assert_array_equal(np.asarray(ref.pos),
-                                  np.asarray(new.pos))
-    np.testing.assert_array_equal(np.asarray(ref.rho),
-                                  np.asarray(new.rho))
-    np.testing.assert_array_equal(np.asarray(ref.hsml),
-                                  np.asarray(new.hsml))
-
-
 def test_wvt_large_path_inkernel_bits_wiring(monkeypatch):
-    """Same A/B through the LARGE-N slab iteration (_make_large_iter_fn,
-    forced by shrinking _LARGE_N): the per-slab stage-A hull bits +
-    in-kernel member test must reproduce the per-slab precomputed-bits
-    iteration exactly."""
-    from functools import partial
-
-    from toycluster_tpu.ops import pallas_pair
-
-    monkeypatch.setenv("TOYCLUSTER_ENGINE", "pallas")
-    monkeypatch.setattr(wvt, "_LARGE_N", 1000)
-    monkeypatch.setattr(
-        pallas_pair, "stream_wvt_pallas",
-        partial(pallas_pair.stream_wvt_pallas, interpret=True))
-
-    cfg = parse_par_file("/root/reference/cluster.par").replace(
+    """The LARGE-N slab iteration (_make_large_iter_fn, forced by
+    shrinking _LARGE_N) through the stream kernel (interpret mode) must
+    reproduce the single-program stream iteration exactly: per-slab
+    skip bits without buckets or list compaction gate the same
+    exact-zero tiles."""
+    cfg = parse_par_file(STOCK_PAR).replace(
         ntotal=3000, wvt_max_iter=2, sph_kernel="m4")
     scene = build_scene(cfg)
     ha = halo_arrays_from_scene(scene)
@@ -189,13 +141,14 @@ def test_wvt_large_path_inkernel_bits_wiring(monkeypatch):
     parts0 = pos_mod.make_positions(key, scene, ha)
     parts0 = pos_mod.shift_origin(parts0, ha, scene.boxsize)
 
-    def run(ik):
-        monkeypatch.setattr(wvt, "_IK_BITS", ik)
+    def run(large_n):
+        monkeypatch.setattr(wvt, "_LARGE_N", large_n)
         return wvt.regularise_sph_particles(scene, ha, parts0,
-                                            log=silent_log)
+                                            log=silent_log,
+                                            engine="stream_interpret")
 
-    ref = run(False)
-    new = run(True)
+    ref = run(10**9)
+    new = run(1000)
     np.testing.assert_array_equal(np.asarray(ref.pos),
                                   np.asarray(new.pos))
     np.testing.assert_array_equal(np.asarray(ref.rho),
@@ -205,19 +158,12 @@ def test_wvt_large_path_inkernel_bits_wiring(monkeypatch):
 
 
 def test_find_sph_quantities_inkernel_bits_wiring(monkeypatch):
-    """TOYCLUSTER_IK_BITS through the standalone density pass
-    (find_sph_quantities, sph.c:13-75): exact equality with the
-    precomputed-bits stream path."""
-    from functools import partial
-
-    from toycluster_tpu.ops import pallas_pair
-
-    monkeypatch.setenv("TOYCLUSTER_ENGINE", "pallas")
-    monkeypatch.setattr(
-        pallas_pair, "stream_wvt_pallas",
-        partial(pallas_pair.stream_wvt_pallas, interpret=True))
-
-    cfg = parse_par_file("/root/reference/cluster.par").replace(
+    """The standalone density pass (find_sph_quantities, sph.c:13-75)
+    through the stream kernel (interpret mode): chunk-refined and
+    block-bbox skip bits gate only exact-zero tiles, so both give the
+    same densities exactly — and they match the XLA engine to solver
+    tolerance."""
+    cfg = parse_par_file(STOCK_PAR).replace(
         ntotal=3000, sph_kernel="m4")
     scene = build_scene(cfg)
     ha = halo_arrays_from_scene(scene)
@@ -225,9 +171,10 @@ def test_find_sph_quantities_inkernel_bits_wiring(monkeypatch):
     parts0 = pos_mod.make_positions(key, scene, ha)
     parts0 = pos_mod.shift_origin(parts0, ha, scene.boxsize)
 
-    def run(ik):
-        monkeypatch.setattr(sph_mod, "_IK_BITS", ik)
-        return sph_mod.find_sph_quantities(scene, ha, parts0)
+    def run(chunk_bits, engine="stream_interpret"):
+        monkeypatch.setattr(sph_mod, "_CHUNK_BITS", chunk_bits)
+        return sph_mod.find_sph_quantities(scene, ha, parts0,
+                                           engine=engine)
 
     ref = run(False)
     new = run(True)
@@ -235,15 +182,21 @@ def test_find_sph_quantities_inkernel_bits_wiring(monkeypatch):
                                   np.asarray(new.rho))
     np.testing.assert_array_equal(np.asarray(ref.hsml),
                                   np.asarray(new.hsml))
+    xla = run(True, engine="xla")
+    n = new.n_gas
+    by_pid = [np.argsort(np.asarray(p.pid[:n])) for p in (new, xla)]
+    rho_s, rho_x = (np.asarray(p.rho)[o] for p, o in zip((new, xla),
+                                                           by_pid))
+    assert np.isclose(rho_s, rho_x, rtol=2e-3).mean() > 0.98
 
 
 @pytest.mark.slow
 def test_offload_path_equivalence(monkeypatch):
-    """The large-N HBM offload (pid/halo parked on host, DM pos split,
+    """The large-N device-memory offload (pid/halo parked on host, DM pos split,
     zero gas fields dropped) must reproduce the default path exactly:
     same positions, densities, ids and halo membership after the
     relaxation, whether parts arrive plain or via the holder list."""
-    cfg = parse_par_file("/root/reference/cluster.par").replace(
+    cfg = parse_par_file(STOCK_PAR).replace(
         ntotal=6000, wvt_max_iter=4, sph_kernel="m4")
     scene = build_scene(cfg)
     ha = halo_arrays_from_scene(scene)

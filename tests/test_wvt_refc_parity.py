@@ -1,14 +1,10 @@
-"""WVT trajectory parity against the COMPILED reference loop
-(VERDICT r4 missing #1): tests/golden/gen_wvt_m4 builds wvt_relax.c +
+"""WVT trajectory parity against the COMPILED reference loop:
+tests/golden/gen_wvt_m4 builds wvt_relax.c +
 sph.c UNMODIFIED (brute-force neighbour fallback, SPH_CUBIC_SPLINE so
 DESNNGB=50 keeps the O(N^2) side tractable in-test) and relaxes the
 IDENTICAL initial particle set as the repo engine.  Both print the
 same statistic: mean relative deviation of solved SPH density from
-the analytic model, per iteration (wvt_relax.c:74-92).
-
-The full-production-kernel (WC6/295, ntotal=2e4) cross-validation is
-the committed PARITY_REFC_r05_wc620000.json artifact from
-scripts/parity_refc.py — same protocol, bigger N."""
+the analytic model, per iteration (wvt_relax.c:74-92)."""
 
 import os
 import re
@@ -18,11 +14,11 @@ import jax
 import numpy as np
 import pytest
 
-from toycluster_tpu import parse_par_file
-from toycluster_tpu.models import positions as pos_mod
-from toycluster_tpu.models import wvt
-from toycluster_tpu.particles import halo_arrays_from_scene
-from toycluster_tpu.scene import build_scene
+from toycluster import STOCK_PAR, parse_par_file
+from toycluster.models import positions as pos_mod
+from toycluster.models import wvt
+from toycluster.particles import halo_arrays_from_scene
+from toycluster.scene import build_scene
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 NTOTAL = 6000
@@ -35,7 +31,7 @@ def test_wvt_trajectory_matches_compiled_reference(tmp_path):
         subprocess.run(["sh", os.path.join(GOLDEN, "build.sh")],
                        check=True, capture_output=True)
 
-    cfg = parse_par_file("/root/reference/cluster.par", ntotal=NTOTAL,
+    cfg = parse_par_file(STOCK_PAR, ntotal=NTOTAL,
                          sph_kernel="m4")
     scene = build_scene(cfg)
     ha = halo_arrays_from_scene(scene)
@@ -46,7 +42,7 @@ def test_wvt_trajectory_matches_compiled_reference(tmp_path):
     # identical initial particle set for both engines
     pos_path = tmp_path / "pos.f32"
     np.asarray(parts.pos[:n_gas], np.float32).tofile(pos_path)
-    par = open("/root/reference/cluster.par").read()
+    par = open(STOCK_PAR).read()
     par = re.sub(r"(?m)^Ntotal\s+\S+", f"Ntotal      {NTOTAL}", par)
     par_path = tmp_path / "parity.par"
     par_path.write_text(par)
